@@ -19,8 +19,8 @@ import numpy as np
 
 sys.path.insert(0, pa.dirname(pa.dirname(pa.abspath(__file__))))
 
-from sfft_tpu.io import fits
-from sfft_tpu import CustomizedPacket
+from sfft_jax.io import fits
+from sfft_jax import CustomizedPacket
 
 
 def make_synthetic(out_dir: str, n: int = 1024, seed: int = 0):

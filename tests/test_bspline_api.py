@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.api.bspline import (
+import sfft_jax  # noqa: F401
+from sfft_jax.api.bspline import (
     BSplineMatchingKernel,
     BSplinePacket,
     make_bspline_config,
     write_bspline_solution_fits,
 )
-from sfft_tpu.config import BasisSpec, SFFTConfig
-from sfft_tpu.core.engine import ElementalSFFT
-from sfft_tpu.io import fits
-from sfft_tpu.post.solution import RealizeMatchingKernel
+from sfft_jax.config import BasisSpec, SFFTConfig
+from sfft_jax.core.engine import ElementalSFFT
+from sfft_jax.io import fits
+from sfft_jax.post.solution import RealizeMatchingKernel
 
 from test_v2_engine import make_pair
 
@@ -50,7 +50,7 @@ def test_matching_kernel_consistency_entangled(rng):
 def test_matching_kernel_separate_varying_sums(rng):
     """For SEPARATE-VARYING, the realized kernel sum at any point must equal
     the scaling basis expansion of the a00 dofs."""
-    from sfft_tpu.core.basis import basis_at_points
+    from sfft_jax.core.basis import basis_at_points
 
     I, J = make_pair(rng)
     cfg = SFFTConfig(
@@ -96,7 +96,7 @@ def test_v2_solution_fits_roundtrip(tmp_path, rng):
     and from_fits must realize identical kernels — the checkpoint/resume
     reader for generalized configs (reference BSpline_MatchingKernel.FromFITS,
     sfft/BSplineSFFT.py:4557-4650)."""
-    from sfft_tpu.api.bspline import read_bspline_solution_fits
+    from sfft_jax.api.bspline import read_bspline_solution_fits
 
     I, J = make_pair(rng)
     cfg = make_bspline_config(

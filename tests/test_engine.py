@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401  (enables x64)
-from sfft_tpu.config import SFFTConfig, BasisSpec
-from sfft_tpu.core.engine import ElementalSFFT, GeneralSFFT
+import sfft_jax  # noqa: F401  (enables x64)
+from sfft_jax.config import SFFTConfig, BasisSpec
+from sfft_jax.core.engine import ElementalSFFT, GeneralSFFT
 
 from oracle import solve_oracle, model_image, design_matrix
 
@@ -124,10 +124,10 @@ def test_solvers_agree(rng, solver):
 def test_refined_solve_f64_reaches_f64_floor():
     """Large-NEQ contract solver (f32 Cholesky factor + exact-f64-residual
     refinement, core/solve.py:_refined_solve_f64) must hit the f64 floor on
-    an SPD system at the NIRCam-like conditioning (cond ~1e7, measured on
-    the real 13,226-dof system in tools/diag_nircam_f64.py)."""
+    an SPD system at the NIRCam-like conditioning (cond ~1e7, as on the
+    real 13,226-dof system)."""
     import jax.numpy as jnp
-    from sfft_tpu.core.solve import _refined_solve_f64
+    from sfft_jax.core.solve import _refined_solve_f64
 
     rng = np.random.default_rng(414)
     n = 384
@@ -175,7 +175,7 @@ def test_forceconv_sci_sign_and_nan(rng):
     equal -PCP(B, A, 'REF') exactly, and NaN pixels of either input must come
     back NaN in the difference (reference CustomizedPacket.py ForceConv
     handling + NaN union semantics)."""
-    from sfft_tpu.api.customized import PureJAXCustomizedPacket as P
+    from sfft_jax.api.customized import PureJAXCustomizedPacket as P
 
     A, B = make_pair(rng)
     mA, mB = A.copy(), B.copy()
@@ -196,7 +196,7 @@ def test_gss_same_pair_fused_path_matches_two_program_path(rng):
     the fused same-pair jit (shared plane spectra in the exact backends);
     it must return exactly what the generic two-program path returns for
     equal-valued but distinct arrays."""
-    from sfft_tpu.core.engine import GeneralSFFT
+    from sfft_jax.core.engine import GeneralSFFT
 
     I, J = make_pair(rng, N0=48, N1=48)
     cfg = base_cfg(N0=48, N1=48, w=1)
@@ -210,18 +210,19 @@ def test_gss_same_pair_fused_path_matches_two_program_path(rng):
 
 
 def test_mode_resolution_and_balanced_backend(rng):
-    """config.TPU_MODES named modes: on CPU the platform defaults win (f64
-    FFT + LU parity-oracle path); an unknown mode raises; and the balanced
-    backend triple (exact greek + exact solve + fft32 fdiff) runs on CPU with
-    a contract-grade solution and an fft32-floor difference."""
-    from sfft_tpu.config import make_config, TPU_MODES
+    """config.MODES named modes resolve the same knobs on every backend; the
+    retired 'balanced' mode and an unknown mode raise; and the exact-greek +
+    exact-solve + fft32-fdiff triple runs with a contract-grade solution
+    and an fft32-floor difference."""
+    from sfft_jax.config import make_config, MODES
 
-    assert set(TPU_MODES) == {"contract", "balanced", "fast"}
-    cfg = make_config(24, 20, 1, mode="balanced")
+    assert set(MODES) == {"contract", "fast"}
+    cfg = make_config(24, 20, 1, mode="contract")
     assert (cfg.greek_backend, cfg.fdiff_backend, cfg.solver) == \
         ("fft", "fft", "lu")
-    with pytest.raises(ValueError):
-        make_config(24, 20, 1, mode="speedy")
+    for mode in ("balanced", "speedy"):
+        with pytest.raises(ValueError):
+            make_config(24, 20, 1, mode=mode)
 
     I, J = make_pair(rng)
     cfg_bal = base_cfg(greek_backend="exact", fdiff_backend="fft32",
@@ -235,68 +236,6 @@ def test_mode_resolution_and_balanced_backend(rng):
     # difference: fft32 construction floor (~1e-4 relative)
     d_ba, d_ra = np.asarray(d_b), np.asarray(d_r)
     assert np.allclose(d_ba, d_ra, atol=5e-4 * np.abs(d_ra).max())
-
-
-def test_sliced_cholesky_trailing_matches_dot():
-    """sliced_exact_dot-based trailing updates must give a factor of the same
-    f64 grade as the HIGHEST-precision dot route (the TPU contract solver's
-    n^3 stage rides this, core/solve.py:_blocked_cholesky)."""
-    import jax
-    import jax.numpy as jnp
-    from sfft_tpu.core.solve import _blocked_cholesky, sliced_exact_dot
-
-    rng = np.random.default_rng(3)
-    n = 700
-    G = rng.normal(size=(n, n)) * np.exp(rng.normal(size=(1, n)))
-    A = G.T @ G + n * np.eye(n)
-    d = 1.0 / np.sqrt(np.diag(A))
-    As = jnp.asarray(A * d[:, None] * d[None, :])
-    hp = jax.lax.Precision.HIGHEST
-    L_dot = np.asarray(jax.jit(
-        lambda M: _blocked_cholesky(M, precision=hp))(As))
-    L_sl = np.asarray(jax.jit(
-        lambda M: _blocked_cholesky(M, precision=hp, trailing="sliced"))(As))
-    assert np.max(np.abs(L_sl - L_dot)) < 1e-12
-    # and the factor actually reproduces the matrix
-    rec = L_sl @ L_sl.T
-    assert np.max(np.abs(rec - np.asarray(As))) < 1e-12
-
-
-def test_tri_inverse_blocked_solver_path():
-    """The TPU exact-solver's L^-1 route (sliced GEMM blocked triangular
-    inverse + matvec substitution) must reach the same solution grade as the
-    CPU panel-substitution route on an ill-conditioned SPD system."""
-    import jax
-    import jax.numpy as jnp
-    from sfft_tpu.core.solve import (_blocked_cholesky, _diag_block_inverses,
-                                     _tri_inverse_blocked)
-
-    rng = np.random.default_rng(4)
-    n = 900
-    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-    A = (Q * np.logspace(0, -8, n)) @ Q.T
-    A = (A + A.T) / 2
-    x_true = rng.normal(size=n)
-    b = A @ x_true
-    d = 1.0 / np.sqrt(np.abs(np.diag(A)))
-    As = jnp.asarray(A * d[:, None] * d[None, :])
-    bs = jnp.asarray(b * d)
-    hp = jax.lax.Precision.HIGHEST
-
-    def solve_inv(As, bs):
-        L = _blocked_cholesky(As, precision=hp, trailing="sliced")
-        Dinv = _diag_block_inverses(L)
-        Li = _tri_inverse_blocked(L, Dinv)
-        x = jnp.dot(Li.T, jnp.dot(Li, bs, precision=hp), precision=hp)
-        for _ in range(2):
-            r = bs - jnp.dot(As, x, precision=hp)
-            x = x + jnp.dot(Li.T, jnp.dot(Li, r, precision=hp), precision=hp)
-        return x
-
-    xs = np.asarray(jax.jit(solve_inv)(As, bs)) * d
-    rel = np.max(np.abs(xs - x_true)) / np.max(np.abs(x_true))
-    # floor ~ cond * eps64 = 1e8 * 1e-16 ~ 1e-8; leave headroom
-    assert rel < 3e-7, rel
 
 
 @pytest.mark.parametrize("cpr,DK,DB", [(True, 2, 2), (False, 2, 2),
@@ -317,8 +256,8 @@ def test_transformed_solver_constraint_and_degrees(rng, cpr, DK, DB):
     # on this tiny pair; 'cho' vs 'lu' shows the same ~6e-10 spread)
     assert np.allclose(st, sr, rtol=1e-6, atol=1e-8 * np.abs(sr).max())
     if cpr:
-        from sfft_tpu.core.indices import kernel_sum_dof_index
-        from sfft_tpu.config import make_config
+        from sfft_jax.core.indices import kernel_sum_dof_index
+        from sfft_jax.config import make_config
         cfg = base_cfg(DK=DK, DB=DB, cpr=cpr)
         rem = kernel_sum_dof_index(cfg)[1:]
         assert np.all(st[rem] == 0.0)
@@ -332,9 +271,9 @@ def test_transformed_solver_certified_fallback():
     solve through the unconditional exact fallback and still return an
     f64-grade solution."""
     import jax.numpy as jnp
-    from sfft_tpu.config import make_config
-    from sfft_tpu.core.indices import kernel_sum_dof_index
-    from sfft_tpu.core.solve import _transformed_solve, _tweak_plan
+    from sfft_jax.config import make_config
+    from sfft_jax.core.indices import kernel_sum_dof_index
+    from sfft_jax.core.solve import _transformed_solve, _tweak_plan
 
     cfg = make_config(24, 20, 1, dtype="float64", solver="transformed")
     rng = np.random.default_rng(77)
@@ -354,81 +293,3 @@ def test_transformed_solver_certified_fallback():
     # fallback floor ~ cond * eps64 ~ 3e-5; the stalled f32 path would sit
     # at O(1) error here
     assert rel < 3e-4, rel
-
-
-@pytest.mark.parametrize("row_chunk", [None, 512])
-def test_sliced_residual_matvec_f64_grade(row_chunk):
-    """The TPU refinement residual's int8-sliced matvec (core/solve.py:
-    _sliced_matvec, triple-split + f64 group recombination) must sit at the
-    f64 dot's grade against a longdouble oracle — a 48-bit pair path here
-    measured 2e-13 and would cap the 13k-dof refinement above the f64 band.
-    row_chunk=512 forces the chunk-major lax.map layout that large (n >=
-    4096) systems take on TPU; n=1200 alone would only cover the unchunked
-    branch (the chunk is not a multiple of n, so the pad rows are live)."""
-    import jax
-    import jax.numpy as jnp
-    from sfft_tpu.core.solve import _sliced_matvec, _sliced_residual_setup
-
-    rng = np.random.default_rng(6)
-    n = 1200
-    G = rng.normal(size=(n, n)) * np.exp(rng.normal(0, 2, size=(1, n)))
-    A = G.T @ G + n * np.eye(n)
-    d = 1.0 / np.sqrt(np.abs(np.diag(A)))
-    x = rng.normal(size=n) * np.exp(rng.normal(0, 2, size=n))
-
-    def mv(A, d, x):
-        _, Asl, sa, chk = _sliced_residual_setup(A, d, row_chunk=row_chunk)
-        return _sliced_matvec(Asl, sa, x, chunk=chk)
-
-    f = jax.jit(mv)
-    out = np.asarray(f(jnp.asarray(A), jnp.asarray(d), jnp.asarray(x)))
-    As = A * d[:, None] * d[None, :]
-    ld = (As.astype(np.longdouble) @ x.astype(np.longdouble)).astype(
-        np.float64)
-    rel = np.max(np.abs(out - ld)) / np.max(np.abs(ld))
-    assert rel < 5e-14, rel
-
-
-def test_refined_f64_sliced_residual_path():
-    """Compose the TPU branch of _refined_solve_f64 explicitly (sliced
-    residual + blocked f32 inverse) and check it reaches the f64 floor at
-    NIRCam-like conditioning — the backend gate hides this path from the
-    CPU-suite otherwise."""
-    import jax
-    import jax.numpy as jnp
-    from sfft_tpu.core.solve import (_sliced_matvec, _sliced_residual_setup,
-                                     _tri_inverse_f32)
-
-    rng = np.random.default_rng(414)
-    n = 1400
-    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-    lam = np.logspace(0, -7, n)
-    A = (Q * lam) @ Q.T
-    A = 0.5 * (A + A.T)
-    b = A @ rng.normal(size=n)
-
-    def solve(A, b):
-        d = 1.0 / jnp.sqrt(jnp.abs(jnp.diagonal(A)))
-        bs = b * d
-        Ah, Asl, sa, chk = _sliced_residual_setup(A, d)
-        L32 = jnp.linalg.cholesky(Ah)
-        Li32 = _tri_inverse_f32(L32)
-
-        def f32_solve(r):
-            y = jnp.dot(Li32, r.astype(jnp.float32))
-            return jnp.dot(Li32.T, y).astype(b.dtype)
-
-        x = f32_solve(bs)
-        # XLA-CPU's f32 Cholesky is ~15x less accurate than LAPACK's
-        # (measured ||As - LL'|| 8.3e-7 vs 5.5e-8), so the contraction rate
-        # here is ~0.25/iter instead of the ~60x/iter seen on the real
-        # hardware systems — give it the iterations; each is two matvecs.
-        for _ in range(20):
-            r = bs - _sliced_matvec(Asl, sa, x, chunk=chk)
-            x = x + f32_solve(r)
-        return x * d
-
-    x = np.asarray(jax.jit(solve)(jnp.asarray(A), jnp.asarray(b)))
-    x_ref = np.linalg.solve(A, b)
-    err = np.max(np.abs(x - x_ref)) / np.max(np.abs(x_ref))
-    assert err < 1e-8, err

@@ -1,6 +1,6 @@
 """Exact-grade FFT / windowed-correlation engine (core/exact_fft.py).
 
-The f64 contract on TPU hinges on this module: correlation tables must reach
+The exact engine hinges on this module: correlation tables must reach
 ~1e-13 norm-wise accuracy (measured sensitivity: 1e-7 noise -> 0.75 solution
 error, 1e-13 -> 3e-7). These tests pin the accuracy of every layer against
 f64 FFT oracles, ON CPU UNDER JIT — the jit part matters, because XLA's
@@ -10,11 +10,11 @@ optimizer breaks compensated arithmetic unless fenced (see _fence docstring).
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
+import sfft_jax  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from sfft_tpu.core.exact_fft import (CPair, exact_corr_window, exact_dft_axis,
+from sfft_jax.core.exact_fft import (CPair, exact_corr_window, exact_dft_axis,
                                      exact_fft2_pair, pair_from_f64,
                                      pair_to_c128, _two_prod, _two_sum)
 
@@ -88,7 +88,7 @@ def test_engine_exact_backend_polynomial(rng):
     """End-to-end: greek_backend='exact' matches the f64 FFT backend."""
     import dataclasses
 
-    from sfft_tpu.core.engine import ElementalSFFT
+    from sfft_jax.core.engine import ElementalSFFT
     from tests.test_engine import base_cfg, make_pair
 
     cfg = base_cfg(N0=64, N1=64, w=2)
@@ -106,12 +106,12 @@ def test_engine_exact_backend_polynomial(rng):
 def test_engine_exact_backend_bspline_dense_knots(rng):
     """The exact backend has NO knot-spacing restriction: a dense-knot
     B-spline config (rejected by the truncated-power peel) solves to full
-    accuracy (VERDICT r1 item 4: exact route for dense-knot configs)."""
+    accuracy."""
     import dataclasses
 
-    from sfft_tpu.api.bspline import make_bspline_config
-    from sfft_tpu.core.engine import ElementalSFFT
-    from sfft_tpu.core.peel_pw import pw_supported
+    from sfft_jax.api.bspline import make_bspline_config
+    from sfft_jax.core.engine import ElementalSFFT
+    from sfft_jax.core.peel_pw import pw_supported
     from tests.test_engine import make_pair
 
     N = 96
@@ -128,8 +128,8 @@ def test_engine_exact_backend_bspline_dense_knots(rng):
     # is the TABLES, so pin those against the f64 FFT oracle entry-by-entry
     import jax.numpy as jnp
 
-    from sfft_tpu.core.engine import _plane_stacks
-    from sfft_tpu.core.greek import greek_tables
+    from sfft_jax.core.engine import _plane_stacks
+    from sfft_jax.core.greek import greek_tables
 
     SI, ST, _ = _plane_stacks(cfg, jnp.asarray(I))
     t_fft = greek_tables(SI, ST, jnp.asarray(J), cfg.w0, cfg.w1, backend="fft")
@@ -145,8 +145,8 @@ def test_engine_exact_backend_separate_varying(rng):
     f64 FFT oracle (exercises the zero-pad-trimmed Pbs/Pss/Pgs/Pts path)."""
     import dataclasses
 
-    from sfft_tpu.api.bspline import make_bspline_config
-    from sfft_tpu.core.engine import ElementalSFFT
+    from sfft_jax.api.bspline import make_bspline_config
+    from sfft_jax.core.engine import ElementalSFFT
     from tests.test_engine import make_pair
 
     N = 64
@@ -175,7 +175,7 @@ def test_fdiff_exact_matches_f64(rng):
 
     import jax
 
-    from sfft_tpu.core.engine import _solve_impl, _subtract_impl
+    from sfft_jax.core.engine import _solve_impl, _subtract_impl
     from tests.test_engine import base_cfg, make_pair
 
     cfg = base_cfg(N0=96, N1=96, w=3)
@@ -196,7 +196,7 @@ def test_exact_solver_reaches_f64_floor(rng):
     refinement stalls."""
     import jax
 
-    from sfft_tpu.core.solve import _exact_solve, _refined_solve
+    from sfft_jax.core.solve import _exact_solve, _refined_solve
 
     n = 300
     Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
@@ -221,8 +221,8 @@ def test_engine_exact_backend_nonsquare_asymmetric(rng):
     square power-of-two + w0==w1 comfort zone."""
     import dataclasses
 
-    from sfft_tpu.config import BasisSpec, SFFTConfig
-    from sfft_tpu.core.engine import ElementalSFFT
+    from sfft_jax.config import BasisSpec, SFFTConfig
+    from sfft_jax.core.engine import ElementalSFFT
     from tests.test_engine import make_pair
 
     cfg = SFFTConfig(N0=30, N1=28, w0=2, w1=1,
@@ -245,7 +245,7 @@ def test_exact_idft_halfin_real(rng, N):
     """Half-input real inverse (fold-weighted Hermitian half -> real signal,
     no zero-pad): machine-grade vs numpy irfft, incl. non-power-of-2 even N.
     This is the fdiff axis-1 inverse path (fdiff_exact / fdiff_pexact)."""
-    from sfft_tpu.core.exact_fft import exact_idft_halfin_real
+    from sfft_jax.core.exact_fft import exact_idft_halfin_real
 
     Nh = N // 2 + 1
     x = 2000.0 * (1 + np.linspace(0, 1, N)) + rng.normal(0, 1, (3, N))
@@ -273,7 +273,7 @@ def _seq_slice_ref(hi, lo, nsl, rowwise):
     """Sequential remainder-chain slicing (the algorithm the Pallas kernel
     implements verbatim) — the telescoped default breaks round-half-even
     ties at the other parity, so bit-equality is pinned against this."""
-    from sfft_tpu.core import exact_fft as ef
+    from sfft_jax.core import exact_fft as ef
 
     if rowwise:
         s = ef._pow2ceil_scalar(jnp.max(jnp.abs(hi), axis=-1, keepdims=True))
@@ -285,63 +285,13 @@ def _seq_slice_ref(hi, lo, nsl, rowwise):
 
 
 @pytest.mark.parametrize("rowwise", [True, False])
-def test_pallas_slice_bit_identical(rng, rowwise):
-    """core/pallas_slice.py must return BIT-IDENTICAL slices + scales to the
-    XLA _slice_pair_real form (the engine's exactness certificates transfer
-    only under equality). Runs the real kernel through the Pallas interpreter
-    on CPU; on hardware the same equality was checked on-device
-    (tools/diag_slice_cost.py)."""
-    from sfft_tpu.core import exact_fft as ef
-    from sfft_tpu.core import pallas_slice
-    from sfft_tpu.core.exact_fft import _slice_pair_real
-
-    nsl = 8
-    for shape in [(64, 384), (3, 40, 256), (130, 120)]:
-        v = rng.normal(0, 7.3, shape) * np.exp(rng.normal(0, 4, shape))
-        hi = jnp.asarray(v.astype(np.float32))
-        lo = jnp.asarray((v - np.asarray(hi, np.float64)).astype(np.float32))
-        sl_x, s_x = jax.jit(
-            lambda h, l: _seq_slice_ref(h, l, nsl, rowwise))(hi, lo)
-        sl_p, s_p = jax.jit(
-            lambda h, l: pallas_slice.slice_pair_real(
-                h, l, nsl, rowwise, ef.NB, ef._pow2ceil_scalar,
-                interpret=True))(hi, lo)
-        np.testing.assert_array_equal(np.asarray(sl_p), np.asarray(sl_x))
-        np.testing.assert_array_equal(np.asarray(s_p), np.asarray(s_x))
-
-
-def test_pallas_slice_triple_bit_identical(rng):
-    """Triple (72-bit) Pallas slicing must bit-match _slice_triple_real."""
-    from sfft_tpu.core import exact_fft as ef
-    from sfft_tpu.core import pallas_slice
-    from sfft_tpu.core.exact_fft import _slice_triple_real
-
-    nsl = 12
-    v = rng.normal(0, 7.3, (70, 300)) * np.exp(rng.normal(0, 4, (70, 300)))
-    hi = v.astype(np.float32)
-    mid = (v - hi.astype(np.float64)).astype(np.float32)
-    lo = (v - hi.astype(np.float64) - mid.astype(np.float64)).astype(
-        np.float32)
-    hi, mid, lo = map(jnp.asarray, (hi, mid, lo))
-    for rowwise in (True, False):
-        sl_x, s_x = jax.jit(lambda a, b, c: _slice_triple_real(
-            a, b, c, nsl, rowwise=rowwise))(hi, mid, lo)
-        sl_p, s_p = jax.jit(lambda a, b, c: pallas_slice.slice_triple_real(
-            a, b, c, nsl, rowwise, ef.NB, ef._pow2ceil_scalar,
-            interpret=True))(hi, mid, lo)
-        np.testing.assert_array_equal(np.asarray(sl_p), np.asarray(sl_x))
-        np.testing.assert_array_equal(np.asarray(s_p), np.asarray(s_x))
-
-
-@pytest.mark.parametrize("rowwise", [True, False])
 def test_slicing_representation_bound(rng, rowwise):
     """Property test of the int8 slicing representation: all slices in the
     int8-safe range, and the reconstruction hits the true f64 value to the
-    pair floor. (Also pins _slice_pair_real == the sequential reference —
-    the telescoped rewrite that would break this was measured slower on
-    hardware and reverted; see the note in exact_fft._slice_pair_real.)"""
-    from sfft_tpu.core import exact_fft as ef
-    from sfft_tpu.core.exact_fft import _slice_pair_real
+    pair floor. (Also pins _slice_pair_real == the sequential reference;
+    see the note in exact_fft._slice_pair_real.)"""
+    from sfft_jax.core import exact_fft as ef
+    from sfft_jax.core.exact_fft import _slice_pair_real
 
     nsl = 9
     v = rng.normal(0, 7.3, (50, 300)) * np.exp(rng.normal(0, 5, (50, 300)))

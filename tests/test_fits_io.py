@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from sfft_tpu.io import fits
+from sfft_jax.io import fits
 
 NIRCAM = (
     "/root/reference/test/subtract_test_nircam/input_data/"
@@ -75,7 +75,7 @@ def test_read_fpack_compressed():
 
 @pytest.mark.skipif(not os.path.exists(FZ), reason="fz data absent")
 def test_rice_native_matches_python_fallback():
-    from sfft_tpu import native
+    from sfft_jax import native
 
     # grab the first compressed tile stream out of the real file
     raw = open(FZ, "rb").read()
@@ -157,7 +157,7 @@ def test_pysex_binary_path_with_stub(tmp_path, monkeypatch):
 import sys
 sys.path.insert(0, {repr(repo_root)})
 import numpy as np
-from sfft_tpu.io import fits
+from sfft_jax.io import fits
 if "-dd" in sys.argv:
     print("CATALOG_NAME cat.fits")
     print("DETECT_THRESH 1.5")
@@ -183,7 +183,7 @@ if kv.get("CHECKIMAGE_TYPE", "NONE") != "NONE":
     img = str(tmp_path / "img.fits")
     fits.write(img, np.random.default_rng(0).normal(size=(16, 16)))
 
-    from sfft_tpu.prep.sex import PYSEx
+    from sfft_jax.prep.sex import PYSEx
     cat, checks, _, _ = PYSEx.PS(
         FITS_obj=img, SExParam=["X_IMAGE", "Y_IMAGE", "FLUX_AUTO"],
         CHECKIMAGE_TYPE="SEGMENTATION", use_binary=True, VERBOSE_LEVEL=0)

@@ -10,13 +10,13 @@ import os
 
 import numpy as np
 
-import sfft_tpu  # noqa: F401
+import sfft_jax  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def test_golden_crowded_pipeline():
-    from sfft_tpu.api.easy_crowded import EasyCrowdedPacket
+    from sfft_jax.api.easy_crowded import EasyCrowdedPacket
 
     with open(os.path.join(DATA, "golden_auto_expected.json")) as f:
         exp = json.load(f)["crowded"]

@@ -11,11 +11,11 @@ import os
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.io import fits
-from sfft_tpu.post.decorrelation import DeCorrelationCalculator
-from sfft_tpu.utils.convolve import convolve2d
-from sfft_tpu.utils.sky import SkyLevelEstimator
+import sfft_jax  # noqa: F401
+from sfft_jax.io import fits
+from sfft_jax.post.decorrelation import DeCorrelationCalculator
+from sfft_jax.utils.convolve import convolve2d
+from sfft_jax.utils.sky import SkyLevelEstimator
 
 CDIR = "/root/reference/test/difference_noise_decorrelation"
 pytestmark = pytest.mark.skipif(

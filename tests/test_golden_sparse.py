@@ -5,7 +5,7 @@ anchors on a committed generated-once DECam-like pair
 (tests/data/golden_sparse_*.fits, tools/make_golden_fixtures.py) with frozen
 expected outputs — a drift anywhere in extract -> hough classify -> symmetric
 match -> CVREJ/EVREJ -> image mask -> solve -> flux scaling -> post-anomaly
-check fails here, not just a loose unit bound (VERDICT r3 next #9).
+check fails here, not just a loose unit bound.
 Reference pipeline: sfft/EasySparsePacket.py:17-600.
 """
 
@@ -14,13 +14,13 @@ import os
 
 import numpy as np
 
-import sfft_tpu  # noqa: F401
+import sfft_jax  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def test_golden_sparse_pipeline():
-    from sfft_tpu.api.easy_sparse import EasySparsePacket
+    from sfft_jax.api.easy_sparse import EasySparsePacket
 
     with open(os.path.join(DATA, "golden_auto_expected.json")) as f:
         exp = json.load(f)["sparse"]

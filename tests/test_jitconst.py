@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sfft_tpu.utils.jitconst import jit_const_args, _DEVICE_CONSTS_BUDGET
+from sfft_jax.utils.jitconst import jit_const_args, _DEVICE_CONSTS_BUDGET
 
 
 TBL = np.arange(48.0, dtype=np.float64).reshape(6, 8)
@@ -63,7 +63,7 @@ def test_complex_consts_ride_as_real_planes():
 def test_device_const_cache_shared_across_instances():
     """Two ConstArgsJit instances tracing the same table must reuse ONE
     device buffer (process-level content cache), not upload duplicates."""
-    import sfft_tpu.utils.jitconst as jc
+    import sfft_jax.utils.jitconst as jc
 
     big = np.random.default_rng(2).normal(size=(64, 64))
 
@@ -111,8 +111,8 @@ def test_signature_cache_no_retrace():
 def test_pytree_args_signature():
     """Args may be pytrees whose leaves have mixed shapes (a CPair stack, a
     list of planes) — the signature probe must flatten, not np.asarray the
-    container (that raised on inhomogeneous lists; hit by
-    tools/diag_pexact_stages.py passing a NamedTuple of mixed-shape arrays)."""
+    container (that raised on inhomogeneous lists, e.g. a NamedTuple of
+    mixed-shape arrays)."""
     calls = {"n": 0}
 
     def fn(tree):

@@ -1,6 +1,6 @@
 """FITS_LDAC binary-catalog bytes driven through the real parser path.
 
-VERDICT r3 missing #4: the SExtractor-subprocess catalog path was only
+Without this fixture the SExtractor-subprocess catalog path would only be
 stub-tested. No `sex` binary exists in this image and the sandbox has no
 egress, so a catalog literally written by SExtractor cannot be obtained;
 this fixture is the next-strongest evidence: the catalog bytes are
@@ -8,7 +8,7 @@ hand-assembled here card-by-card / struct-by-struct to the FITS_LDAC layout
 SExtractor emits (primary HDU; LDAC_IMHEAD BINTABLE whose single
 'Field Header Card' column carries the image header as an (80, N) char
 array; LDAC_OBJECTS BINTABLE with big-endian 1J/1E/1D/1I columns and an
-array-valued aperture column) — independently of sfft_tpu.io.fits' own
+array-valued aperture column) — independently of sfft_jax.io.fits' own
 writer, so the parser is exercised against foreign bytes, not its own
 round-trip. Reference consumer: sfft/utils/pyAstroMatic/PYSEx.py:636-700.
 """
@@ -16,8 +16,8 @@ round-trip. Reference consumer: sfft/utils/pyAstroMatic/PYSEx.py:636-700.
 import numpy as np
 import pytest
 
-from sfft_tpu.io import fits
-from sfft_tpu.prep.sex import parse_ldac_catalog
+from sfft_jax.io import fits
+from sfft_jax.prep.sex import parse_ldac_catalog
 
 BLOCK = 2880
 

@@ -3,17 +3,17 @@
 With fluct_dtype='float64' the peeled backend must reproduce the plain f64 FFT
 backend almost exactly (validates all the moment/wrap/shift algebra). With
 fluct_dtype='float32' it must stay accurate enough that solutions and
-difference images are scientifically equivalent — that is the TPU story.
+difference images are scientifically equivalent — that is fast mode.
 """
 
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.config import SFFTConfig, BasisSpec
-from sfft_tpu.core.engine import ElementalSFFT, _plane_stacks
-from sfft_tpu.core.greek import greek_tables
-from sfft_tpu.core.peel import peeled_greek_tables
+import sfft_jax  # noqa: F401
+from sfft_jax.config import SFFTConfig, BasisSpec
+from sfft_jax.core.engine import ElementalSFFT, _plane_stacks
+from sfft_jax.core.greek import greek_tables
+from sfft_jax.core.peel import peeled_greek_tables
 
 import jax.numpy as jnp
 
@@ -102,7 +102,7 @@ def test_peel_degree_invariance(rng):
 def test_corr_window_matmul_equals_irfft(rng):
     """Partial-iDFT window extraction must match the full irfft2 + gather."""
     import jax.numpy as jnp
-    from sfft_tpu.core.greek import corr_window_fft
+    from sfft_jax.core.greek import corr_window_fft
 
     A = rng.normal(10, 3, (4, 48, 40))
     spec = jnp.fft.rfft2(jnp.asarray(A))

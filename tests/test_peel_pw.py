@@ -13,10 +13,10 @@ from scipy import ndimage as ndi
 import jax
 import jax.numpy as jnp
 
-from sfft_tpu.api.bspline import make_bspline_config
-from sfft_tpu.core.basis import _bspline_basis_values, scaled_coords_1d
-from sfft_tpu.core.engine import solve_and_subtract_fn
-from sfft_tpu.core.peel_pw import (
+from sfft_jax.api.bspline import make_bspline_config
+from sfft_jax.core.basis import _bspline_basis_values, scaled_coords_1d
+from sfft_jax.core.engine import solve_and_subtract_fn
+from sfft_jax.core.peel_pw import (
     bspline_axis_reps, pw_axis, pw_moment_set, pw_corr, pw_contract_basis,
 )
 

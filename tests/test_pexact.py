@@ -4,7 +4,7 @@ The pexact backends must reproduce the plain f64 'fft' CPU path: smooth terms
 are exact moment algebra, fluct x fluct rides the sliced pair-FFT, so at a
 full SliceProfile the tables agree to machine precision and the end-to-end
 solution/difference to the conditioning-amplified f64 band. Reduced profiles
-(the TPU 'balanced' mode) degrade gracefully — bounds pinned here.
+degrade gracefully — bounds pinned here.
 """
 
 import numpy as np
@@ -12,9 +12,9 @@ import pytest
 
 import jax.numpy as jnp
 
-import sfft_tpu  # noqa: F401  (enables x64)
-from sfft_tpu.config import BasisSpec, SFFTConfig
-from sfft_tpu.core.engine import GeneralSFFT, _normal_equations_impl
+import sfft_jax  # noqa: F401  (enables x64)
+from sfft_jax.config import BasisSpec, SFFTConfig
+from sfft_jax.core.engine import GeneralSFFT, _normal_equations_impl
 
 
 def _pair(rng, N0=80, N1=64):
@@ -78,7 +78,7 @@ def test_pexact_contract_profile(pair, oracle):
 
 
 def test_pexact_balanced_profile(pair, oracle):
-    """(6, 6, 5) — the TPU 'balanced' mode profile (~36-bit fluct capture)."""
+    """(6, 6, 5) — a reduced profile (~36-bit fluct capture)."""
     I, J = pair
     _, _, sol_o, d_o = oracle
     cfg = _cfg("pexact", "pexact", pexact_prof=(6, 6, 5))
@@ -106,7 +106,7 @@ def test_pexact_rejects_bspline():
                                             int_knots_y=(32.0,)),
                      bg_basis=BasisSpec("polynomial", 2),
                      greek_backend="pexact", fdiff_backend="pexact")
-    from sfft_tpu.core.pexact import pexact_supported
+    from sfft_jax.core.pexact import pexact_supported
 
     assert not pexact_supported(cfg)
     with pytest.raises(ValueError, match="polynomial"):

@@ -3,19 +3,19 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.config import SFFTConfig, BasisSpec
-from sfft_tpu.core.engine import ElementalSFFT
-from sfft_tpu.post.fftkits import kernel_csz, kernel_csz_inv, fft_convolve
-from sfft_tpu.post.solution import (
+import sfft_jax  # noqa: F401
+from sfft_jax.config import SFFTConfig, BasisSpec
+from sfft_jax.core.engine import ElementalSFFT
+from sfft_jax.post.fftkits import kernel_csz, kernel_csz_inv, fft_convolve
+from sfft_jax.post.solution import (
     RealizeFluxScaling,
     RealizeMatchingKernel,
     sfft2standard,
     standard2sfft,
     sfft_dict_from_solution,
 )
-from sfft_tpu.post.grid_convolve import grid_convolve_uniform, grid_convolve_labels, make_tile_grid
-from sfft_tpu.utils.convolve import convolve2d
+from sfft_jax.post.grid_convolve import grid_convolve_uniform, grid_convolve_labels, make_tile_grid
+from sfft_jax.utils.convolve import convolve2d
 
 
 def test_csz_roundtrip():
@@ -109,7 +109,7 @@ def test_bdc_denominator_clipping():
     near-singular denominator (a kernel whose spectrum has near-zeros) the
     unclipped whitening kernel blows up; the clipped one stays bounded, and
     with a huge ratio BDC degenerates to DCC exactly."""
-    from sfft_tpu.post.decorrelation import (BSplineDeCorrelation,
+    from sfft_jax.post.decorrelation import (BSplineDeCorrelation,
                                              DeCorrelationCalculator,
                                              decorrelation_kernel)
 
@@ -145,7 +145,7 @@ def test_decorrelation_transfer_pcdc_semantics():
     """decorrelation_transfer = reference PCDC: Fourier map normalized to
     F[0,0] = 1, or a truncated unit-sum real kernel; REAL_OUTPUT at the same
     trivial image size must agree with decorrelation_kernel's result."""
-    from sfft_tpu.post.decorrelation import (decorrelation_kernel,
+    from sfft_jax.post.decorrelation import (decorrelation_kernel,
                                              decorrelation_transfer)
 
     mk = np.zeros((5, 5))

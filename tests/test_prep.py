@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.io import fits
+import sfft_jax  # noqa: F401
+from sfft_jax.io import fits
 
 
 def synth_field(rng, N0=300, N1=280, nstars=120, fwhm=3.0, bg=100.0,
@@ -31,7 +31,7 @@ def synth_field(rng, N0=300, N1=280, nstars=120, fwhm=3.0, bg=100.0,
 
 
 def test_extractor_recovers_sources():
-    from sfft_tpu.prep.extract import extract_sources
+    from sfft_jax.prep.extract import extract_sources
 
     # well-separated grid of stars (the extractor has no deblending; blended
     # pairs merge, as SExtractor would without deblending)
@@ -53,7 +53,7 @@ def test_extractor_recovers_sources():
     cat, seg = extract_sources(img, detect_thresh=2.0)
     assert len(cat) >= len(truth) - 2
     assert seg.max() == len(cat)
-    from sfft_tpu.utils.match import SymmetricMatch
+    from sfft_jax.utils.match import SymmetricMatch
 
     det = np.array([cat["X_IMAGE"] - 1, cat["Y_IMAGE"] - 1]).T
     symm = SymmetricMatch.SM(truth[:, :2], det, tol=1.5)
@@ -69,7 +69,7 @@ def test_extractor_recovers_sources():
 
 
 def test_hough_detects_line():
-    from sfft_tpu.utils.hough import hough_line, hough_line_peaks
+    from sfft_jax.utils.hough import hough_line, hough_line_peaks
 
     img = np.zeros((100, 120), bool)
     img[40, :] = True  # horizontal line y=40 (row 40)
@@ -84,7 +84,7 @@ def test_hough_detects_line():
 
 
 def test_canny_detects_edge():
-    from sfft_tpu.utils.canny import canny
+    from sfft_jax.utils.canny import canny
 
     img = np.zeros((60, 60))
     img[:, 30:] = 10.0
@@ -95,7 +95,7 @@ def test_canny_detects_edge():
 
 
 def test_morph_classifier_belt():
-    from sfft_tpu.prep.morph_classifier import HoughMorphClassifier
+    from sfft_jax.prep.morph_classifier import HoughMorphClassifier
 
     rng = np.random.default_rng(7)
     img, _ = synth_field(rng, N0=400, N1=400, nstars=300, fwhm=3.2, ngal=15)
@@ -112,7 +112,7 @@ def test_morph_classifier_belt():
 
 
 def test_sparse_prep_and_easy_packet(tmp_path):
-    from sfft_tpu.api.easy_sparse import EasySparsePacket
+    from sfft_jax.api.easy_sparse import EasySparsePacket
 
     rng = np.random.default_rng(11)
     ref, truth = synth_field(rng, N0=320, N1=300, nstars=150, fwhm=2.8, bg=0.0)
@@ -154,8 +154,8 @@ def test_run_image_mask_prozone_excludes_rejected_sources():
     islands become negative labels and join the prohibited zone, so a kept
     star's dilated mask can never swallow a rejected source's pixels — they
     must stay at -128 and OUT of the active fit mask."""
-    from sfft_tpu.prep.sparse_prep import AutoSparsePrep
-    from sfft_tpu.utils.table import Table
+    from sfft_jax.prep.sparse_prep import AutoSparsePrep
+    from sfft_jax.utils.table import Table
 
     N = 24
     ref = np.full((N, N), 5.0)
@@ -188,7 +188,7 @@ def test_run_image_mask_prozone_excludes_rejected_sources():
 
 
 def test_crowded_prep_and_easy_packet(tmp_path):
-    from sfft_tpu.api.easy_crowded import EasyCrowdedPacket
+    from sfft_jax.api.easy_crowded import EasyCrowdedPacket
 
     rng = np.random.default_rng(13)
     ref, truth = synth_field(rng, N0=300, N1=300, nstars=400, fwhm=3.0,
@@ -213,7 +213,7 @@ def test_crowded_prep_and_easy_packet(tmp_path):
 
 
 def test_sky_subtract(tmp_path):
-    from sfft_tpu.prep.sky_subtract import SExSkySubtract
+    from sfft_jax.prep.sky_subtract import SExSkySubtract
 
     rng = np.random.default_rng(17)
     img, _ = synth_field(rng, N0=256, N1=256, nstars=60, bg=0.0)
@@ -235,7 +235,7 @@ def test_sky_subtract(tmp_path):
 
 
 def test_weighted_quantile_basics():
-    from sfft_tpu.utils.quantile import WeightedQuantile
+    from sfft_jax.utils.quantile import WeightedQuantile
 
     v = np.array([1.0, 2.0, 3.0, 4.0])
     q = WeightedQuantile.WQ(v, np.ones(4), [0.5])
@@ -246,7 +246,7 @@ def test_weighted_quantile_basics():
 
 
 def test_extractor_deblends_close_pair():
-    from sfft_tpu.prep.extract import extract_sources
+    from sfft_jax.prep.extract import extract_sources
 
     rng = np.random.default_rng(21)
     img = 100 + rng.normal(0, 2, (120, 120))

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.config import SFFTConfig, BasisSpec
-from sfft_tpu.core.engine import ElementalSFFT
-from sfft_tpu.core.basis import basis_planes, basis_1d_tables
+import sfft_jax  # noqa: F401
+from sfft_jax.config import SFFTConfig, BasisSpec
+from sfft_jax.core.engine import ElementalSFFT
+from sfft_jax.core.basis import basis_planes, basis_1d_tables
 
 from oracle import basis_planes_np, ab_offsets, poly_exponents
 
@@ -170,8 +170,8 @@ def test_bspline_partition_of_unity():
 def test_regularization_quadratic_form(rng):
     """v^T REGMAT v must equal SCALE^2 * mean_q ||LAP @ Kstd(x_q)||^2 computed
     independently via realized kernels."""
-    from sfft_tpu.core.regularize import apply_regularization, _iregmat
-    from sfft_tpu.post.solution import sfft2standard
+    from sfft_jax.core.regularize import apply_regularization, _iregmat
+    from sfft_jax.post.solution import sfft2standard
 
     N0 = N1 = 32
     xy = tuple((float(x), float(y)) for x, y in
@@ -190,7 +190,7 @@ def test_regularization_quadratic_form(rng):
 
     # independent: realize delta-basis kernel coeffs at each point, convert to
     # standard basis, apply the Laplacian stencil, sum squares
-    from sfft_tpu.core.basis import basis_at_points
+    from sfft_jax.core.basis import basis_at_points
 
     a = v[: cfg.Fijab].reshape(cfg.Fij, cfg.L0, cfg.L1)
     sx = np.array([p[0] for p in xy]) / N0
@@ -217,7 +217,7 @@ def test_regularization_quadratic_form(rng):
 def test_regularization_smooths_kernel(rng):
     """Larger lambda must monotonically reduce the penalized quantity (the
     REGMAT quadratic form of the solved coefficients)."""
-    from sfft_tpu.core.regularize import apply_regularization
+    from sfft_jax.core.regularize import apply_regularization
 
     I, J = make_pair(rng)
     xy = tuple((float(x), float(y)) for x, y in
@@ -244,12 +244,12 @@ def test_regularization_streamed_equals_dense(rng):
     """assemble_system(reg_terms=...) must equal the standalone dense
     apply_regularization on the assembled system — incl. SEPARATE-VARYING's
     four-way center-offset case split. (The streamed form exists because the
-    dense REGMAT add OOMs the chip at 13k dof.)"""
-    from sfft_tpu.core.assemble import assemble_system, entangled_tables, GreekTables
-    from sfft_tpu.core.engine import _solve_impl  # noqa: F401 (import parity)
-    from sfft_tpu.core.greek import greek_tables, greek_tables_separate
-    from sfft_tpu.core.regularize import apply_regularization, regularization_terms
-    from sfft_tpu.core.engine import _plane_stacks
+    dense REGMAT add needs (Fijab, Fijab)-scale temporaries at 13k dof.)"""
+    from sfft_jax.core.assemble import assemble_system, entangled_tables, GreekTables
+    from sfft_jax.core.engine import _solve_impl  # noqa: F401 (import parity)
+    from sfft_jax.core.greek import greek_tables, greek_tables_separate
+    from sfft_jax.core.regularize import apply_regularization, regularization_terms
+    from sfft_jax.core.engine import _plane_stacks
 
     I, J = make_pair(rng)
     xy = tuple((float(x), float(y)) for x, y in rng.uniform(3, 30, size=(12, 2)))

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import sfft_tpu  # noqa: F401
-from sfft_tpu.io import fits
-from sfft_tpu.utils.wcs import (
+import sfft_jax  # noqa: F401
+from sfft_jax.io import fits
+from sfft_jax.utils.wcs import (
     WCS, ReadWCS, CombineHeader, PatternRotationCalculator,
     NeighboringPixelCovariance,
 )
@@ -86,7 +86,7 @@ def test_neighboring_pixel_covariance(rng):
 
 
 def test_pyswarp_resample_roundtrip(tmp_path, rng):
-    from sfft_tpu.prep.resample import PYSWarp
+    from sfft_jax.prep.resample import PYSWarp
 
     # smooth image on a slightly rotated/shifted grid
     yy, xx = np.meshgrid(np.arange(240), np.arange(200), indexing="xy")
@@ -110,7 +110,7 @@ def test_pyswarp_resample_roundtrip(tmp_path, rng):
 
 
 def test_image_zoom_rotate(rng):
-    from sfft_tpu.prep.resample import ImageZoomRotate
+    from sfft_jax.prep.resample import ImageZoomRotate
 
     yy, xx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
     psf = np.exp(-((xx - 31.5) ** 2 + (yy - 31.5) ** 2) / (2 * 3.0**2))
@@ -132,7 +132,7 @@ def test_pyswarp_binary_path_with_stub(tmp_path, monkeypatch):
     import stat
     import sys
 
-    from sfft_tpu.io import fits as sfits
+    from sfft_jax.io import fits as sfits
 
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(sfits.__file__))))
@@ -141,7 +141,7 @@ def test_pyswarp_binary_path_with_stub(tmp_path, monkeypatch):
 import sys, os
 sys.path.insert(0, {repr(repo_root)})
 import numpy as np
-from sfft_tpu.io import fits
+from sfft_jax.io import fits
 if "-dd" in sys.argv:
     print("IMAGEOUT_NAME coadd.fits")
     print("WEIGHTOUT_NAME coadd.weight.fits")
@@ -177,7 +177,7 @@ fits.write(kv["WEIGHTOUT_NAME"], wt)
     fits.write(str(tmp_path / "obj.fits"), img, h_obj)
     fits.write(str(tmp_path / "ref.fits"), np.zeros_like(img), h_ref)
 
-    from sfft_tpu.prep.resample import PYSWarp
+    from sfft_jax.prep.resample import PYSWarp
     out = PYSWarp.PS(str(tmp_path / "obj.fits"), str(tmp_path / "ref.fits"),
                      str(tmp_path / "resamp.fits"), FILL_VALUE=np.nan,
                      use_binary=True, VERBOSE_LEVEL=0)
@@ -188,16 +188,3 @@ fits.write(kv["WEIGHTOUT_NAME"], wt)
     assert hdr_out["SATURATE"] == 12345.0      # swarp-updated satur level
     assert hdr_out["GAIN"] == 2.0              # base header preserved
     assert abs(hdr_out["CRPIX1"] - 7.5) < 1e-9  # ref WCS grid
-
-
-def test_device_warmup_background_touch():
-    """start_device_warmup must fire the first-touch RPC from a daemon
-    thread and report its duration; errors are recorded, not raised."""
-    from sfft_tpu.utils.warmup import start_device_warmup
-
-    wu = start_device_warmup()
-    secs = wu.wait(timeout=60.0)
-    assert secs is not None, "warm-up still in flight after 60s (wait() " \
-                             "returns None on timeout, never a fake 0.0)"
-    assert wu.error is None
-    assert 0.0 <= secs < 60.0

@@ -2,7 +2,7 @@
 
 The reference's sparse/crowded test FITS (DECam 2k x 4k, ZTF M31) are
 stripped from this mount (.MISSING_LARGE_BLOBS), so the auto pipelines had
-only synthetic unfrozen e2e tests (VERDICT r3 next #9). This tool generates
+only synthetic unfrozen e2e tests. This tool generates
 small DECam-like pairs ONCE, runs the full EasySparse / EasyCrowded packets
 on CPU, and freezes the pair FITS + the measured pipeline outputs (diff RMS,
 flux-scaling grid stats, post-anomaly counts, prep statistics) into
@@ -28,7 +28,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-from sfft_tpu.io import fits  # noqa: E402
+from sfft_jax.io import fits  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "tests", "data")
 
@@ -69,7 +69,7 @@ def crowded_pair():
 
 
 def run_sparse(tdir):
-    from sfft_tpu.api.easy_sparse import EasySparsePacket
+    from sfft_jax.api.easy_sparse import EasySparsePacket
 
     diff, prepdict, sol, fscal, fsig = EasySparsePacket.ESP(
         os.path.join(tdir, "golden_sparse_ref.fits"),
@@ -94,7 +94,7 @@ def run_sparse(tdir):
 
 
 def run_crowded(tdir):
-    from sfft_tpu.api.easy_crowded import EasyCrowdedPacket
+    from sfft_jax.api.easy_crowded import EasyCrowdedPacket
 
     diff, prepdict, sol, fscal = EasyCrowdedPacket.ECP(
         os.path.join(tdir, "golden_crowded_ref.fits"),
